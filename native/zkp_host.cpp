@@ -1,5 +1,5 @@
 // Native host runtime for zk_state_proofs_tpu: fast Keccak-256 and batched
-// witness packing. The TPU does the verification math; this library covers
+// witness packing. The GPU does the verification math; this library covers
 // the host-side hot loops around it (the role the reference fills with
 // native Rust throughout — tiny-keccak and eth_trie node handling,
 // reference: crypto-ops/src/keccak.rs, trie-utils/src/proofs/*):
@@ -263,69 +263,6 @@ int zkp_build_node_pool(const uint8_t* nodes, const int32_t* node_lens,
     for (int64_t k = 0; k < total; ++k) pool_idx[k] = inv[pool_idx[k]];
   }
   return used;
-}
-
-// Per-node RLP item-boundary offsets — decode HINTS for the fused TPU
-// walk kernel's parallel-decode mode (mirrors ops/rlp.item_offsets
-// byte-for-byte, including the device's position clamp into the 4-byte-
-// padded buffer, so host-packed hints never trip the kernel's chain check
-// on honest nodes). rows: u8 [n, row_len] zero-padded nodes; out:
-// u8 [n, 36] = 18 big-endian u16 cursors (node-list payload start, then
-// the boundary after each of up to 17 items), clamped to 65535.
-void zkp_item_offsets(const uint8_t* rows, int n, int row_len, uint8_t* out) {
-  const int64_t n4 = ((static_cast<int64_t>(row_len) + 3) / 4) * 4;
-  auto byte_at = [&](const uint8_t* row, int64_t pos) -> int64_t {
-    return pos < row_len ? row[pos] : 0;  // padded words read as zero
-  };
-  // RLP header at `pos` (clamped): returns payload_offset (relative) and
-  // payload_len with the same degenerate-form handling as
-  // ops/rlp.item_head_window (length-of-length > 3 reads the 3-byte form;
-  // validity is the verifier's business, the hint chain just mirrors it).
-  auto head = [&](const uint8_t* row, int64_t pos, int64_t* po, int64_t* pl) {
-    if (pos < 0) pos = 0;
-    if (pos > n4 - 1) pos = n4 - 1;
-    const int64_t b0 = byte_at(row, pos);
-    const int64_t b1 = byte_at(row, pos + 1);
-    const int64_t b2 = byte_at(row, pos + 2);
-    const int64_t b3 = byte_at(row, pos + 3);
-    int64_t lol = 0;
-    if (b0 >= 0xB8 && b0 <= 0xBF) lol = b0 - 0xB7;
-    else if (b0 >= 0xF8) lol = b0 - 0xF7;
-    const int64_t long_len =
-        lol == 1 ? b1 : (lol == 2 ? (b1 << 8) | b2
-                                  : (b1 << 16) | (b2 << 8) | b3);
-    if (b0 < 0x80) {
-      *po = 0; *pl = 1;
-    } else if (lol > 0) {
-      *po = 1 + lol; *pl = long_len;
-    } else if (b0 >= 0xC0) {
-      *po = 1; *pl = b0 - 0xC0;
-    } else {
-      *po = 1; *pl = b0 - 0x80;
-    }
-  };
-  for (int r = 0; r < n; ++r) {
-    const uint8_t* row = rows + static_cast<size_t>(r) * row_len;
-    uint8_t* o = out + static_cast<size_t>(r) * 36;
-    int64_t po, pl;
-    head(row, 0, &po, &pl);
-    const int64_t end = po + pl;
-    int64_t cursor = po;
-    auto store = [&](int i, int64_t v) {
-      if (v < 0) v = 0;
-      if (v > 0xFFFF) v = 0xFFFF;
-      o[2 * i] = static_cast<uint8_t>(v >> 8);
-      o[2 * i + 1] = static_cast<uint8_t>(v & 0xFF);
-    };
-    store(0, cursor);
-    for (int i = 0; i < 17; ++i) {
-      if (cursor < end) {
-        head(row, cursor, &po, &pl);
-        cursor += po + pl;
-      }
-      store(i + 1, cursor);
-    }
-  }
 }
 
 }  // extern "C"

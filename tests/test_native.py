@@ -109,3 +109,18 @@ def test_native_node_pool_matches_python():
     # on this); row 0 stays the zero row
     assert pl[0] == 0
     assert (np.diff(pl[1:]) <= 0).all()
+
+
+def test_native_build_from_source_is_atomic(tmp_path):
+    """The library builds from the committed source into its target by
+    rename: no temporary file is left beside it, and it loads."""
+    import ctypes
+
+    target = tmp_path / "libzkp_host.so"
+    if not native._build(target):
+        pytest.skip("no C++ compiler")
+    assert target.exists()
+    assert [p.name for p in tmp_path.iterdir()] == ["libzkp_host.so"]
+    lib = ctypes.CDLL(str(target))
+    assert hasattr(lib, "zkp_keccak256")
+    assert not hasattr(lib, "zkp_item_offsets")

@@ -123,7 +123,7 @@ def test_service_warmup_compiles_both_segment_executables():
     """With a pinned depth_segments schedule, warmup must compile BOTH
     the segmented executable and the unsegmented fallback: the first
     schedule-miss request must trigger NO new XLA compile (a cold compile
-    is minutes through a remote relay — never acceptable mid-serving)."""
+    takes seconds to minutes — never acceptable mid-serving)."""
     t, keys = _trie(48, tag=b"svcwarm")
     root = t.root_hash()
     entries = [(root, t.get_proof(k), k) for k in keys[:32]]
@@ -174,7 +174,7 @@ def test_service_pinned_pool_segments_hit_and_miss():
     r_ref = plain.verify(entries)
 
     probe = plain.pack(entries)
-    psegs = probe.pool_block_segments(tile=32)
+    psegs = probe.pool_block_segments()
     svc = BatchVerifier(BucketConfig.account(), batch_size=32,
                         pool_segments=psegs)
     svc.pool_rows = plain.pool_rows  # same pinned pool bucket

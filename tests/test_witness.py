@@ -291,7 +291,7 @@ def test_sweep_resident_and_indexed_parity():
     # sweep driver over index batches (with repeats across batches)
     rng = np.random.default_rng(3)
     sels = [rng.permutation(64)[:32] for _ in range(4)]
-    res = sweep_resident(packed, sels)
+    res = sweep_resident(packed, sels, materialize=False)
     want_found = sum(int((s1[sel] == mpt.FOUND).sum()) for sel in sels)
     want_excl = sum(int((s1[sel] == mpt.EXCLUDED).sum()) for sel in sels)
     assert res.total == 128
@@ -343,7 +343,7 @@ def test_pool_block_segments_hashing_parity():
     entries = [(root, t.get_proof(k), k) for k in keys]
     packed = pack_proofs(entries, node_len=576)
     pool = packed.pool()
-    segs = packed.pool_block_segments(tile=64)  # force >1 segment
+    segs = packed.pool_block_segments()  # 1- and multi-block runs
     assert len(segs) >= 2
     assert sum(c for c, _ in segs) == pool[0].shape[0]
     # widths must cover every row's real length
@@ -351,11 +351,10 @@ def test_pool_block_segments_hashing_parity():
     for cnt, w in segs:
         assert int(pool[1][off:off + cnt].max()) <= w
         off += cnt
-    d1 = np.asarray(mpt.hash_nodes_pooled(
-        jnp.asarray(pool[0]), jnp.asarray(pool[1]), jnp.asarray(pool[2])))
-    d2 = np.asarray(mpt.hash_nodes_pooled(
-        jnp.asarray(pool[0]), jnp.asarray(pool[1]), jnp.asarray(pool[2]),
-        pool_segments=segs))
+    d1 = np.asarray(mpt._hash_pool_rows(
+        jnp.asarray(pool[0]), jnp.asarray(pool[1])))
+    d2 = np.asarray(mpt._hash_pool_rows(
+        jnp.asarray(pool[0]), jnp.asarray(pool[1]), pool_segments=segs))
     np.testing.assert_array_equal(d1, d2)
     r1 = mpt.verify_proofs_pooled(*packed.astuple(), *pool)
     r2 = mpt.verify_proofs_pooled(*packed.astuple(), *pool,

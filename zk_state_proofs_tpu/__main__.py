@@ -131,8 +131,7 @@ def cmd_record_proof(args):
 def cmd_diagnose(args):
     """Verify a recorded block's tx or receipt proofs WITH per-proof
     INVALID reason codes (mpt.REASON_NAMES) — the triage surface for the
-    reference's distinct panic messages (crypto-ops/src/lib.rs:14,22).
-    On TPU the reasons come from the fused kernel's in-kernel latch."""
+    reference's distinct panic messages (crypto-ops/src/lib.rs:14,22)."""
     from .models import diagnose_batch
     from .ops import mpt
     from .witness.builders import (
@@ -221,6 +220,9 @@ def main(argv=None) -> int:
     s.set_defaults(fn=cmd_selftest)
 
     args = p.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

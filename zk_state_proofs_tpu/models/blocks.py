@@ -1,6 +1,6 @@
 """Block-level verification flows: transaction and receipt tries.
 
-The TPU counterpart of the reference's tx/receipt test flows
+The device counterpart of the reference's tx/receipt test flows
 (reference: trie-utils/tests/transaction.rs:12-40, tests/receipt.rs:9-23):
 rebuild the block trie from witness data, extract proofs, verify the batch
 on device against the header root, and (for receipts) decode verified

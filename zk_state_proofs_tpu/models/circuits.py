@@ -1,4 +1,4 @@
-"""Circuit entrypoints — the reference's zkVM guests as TPU functions.
+"""Circuit entrypoints — the reference's zkVM guests as device functions.
 
 The reference runs verification inside RISC-V zkVM guests that read a
 borsh-encoded input, verify, and commit the result as public values:
@@ -11,7 +11,7 @@ borsh-encoded input, verify, and commit the result as public values:
     address_keccak, decode the account, verify each storage proof at
     keccak(slot) against account.storage_root -> commit(stored_values)
 
-Here the same semantics run batched on TPU; the "public values" are the
+Here the same semantics run batched on device; the "public values" are the
 returned bytes (and `models.batch_commitment` digests them for
 attestation). STARK proving itself is out of scope (SURVEY.md §7.5) — the
 role these functions preserve is the *verifiable re-execution contract*:

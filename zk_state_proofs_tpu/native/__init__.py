@@ -1,8 +1,11 @@
 """ctypes bindings for the native host runtime (native/zkp_host.cpp).
 
-Builds on first use if g++ is available; every caller has a pure-Python
-fallback, so the framework works without the native library (just slower on
-host-side packing/hashing).
+The shared library is built from the committed source at first use (g++)
+and is never committed: a build is written to a temporary file beside its
+target and renamed into place, so processes that import this package at
+once (test workers) never load a half-written library. Every caller has a
+pure-Python fallback, so the framework works without the native library
+(just slower on host-side packing/hashing).
 """
 
 from __future__ import annotations
@@ -10,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import os
 import subprocess
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -20,31 +24,42 @@ _SRC = _HERE.parent.parent / "native" / "zkp_host.cpp"
 
 _lib = None
 _load_failed = False
+built_from_source = False  # this process compiled the library
 
 
-def _build() -> bool:
+def _build(target: Path = _SO) -> bool:
+    """Compile _SRC into `target` atomically; True on success."""
     if not _SRC.exists():
         return False
+    fd, tmp = tempfile.mkstemp(dir=target.parent, prefix=target.name + ".",
+                               suffix=".tmp")
+    os.close(fd)
     try:
         subprocess.run(
-            ["g++", "-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
-             "-o", str(_SO), str(_SRC)],
+            ["g++", "-O3", "-fPIC", "-std=c++17", "-shared", "-o", tmp,
+             str(_SRC)],
             check=True, capture_output=True, timeout=120,
         )
+        os.replace(tmp, target)
         return True
-    except Exception:
+    except (OSError, subprocess.SubprocessError):
         return False
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def get_lib():
     """The loaded native library, or None if unavailable."""
-    global _lib, _load_failed
+    global _lib, _load_failed, built_from_source
     if _lib is not None or _load_failed:
         return _lib
     stale = (_SO.exists() and _SRC.exists()
              and _SRC.stat().st_mtime > _SO.stat().st_mtime)
-    if (not _SO.exists() or stale) and not _build():
-        if not _SO.exists():
+    if not _SO.exists() or stale:
+        if _build():
+            built_from_source = True
+        elif not _SO.exists():
             _load_failed = True
             return None
     try:
@@ -65,11 +80,6 @@ def get_lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ]
-    if hasattr(lib, "zkp_item_offsets"):
-        lib.zkp_item_offsets.restype = None
-        lib.zkp_item_offsets.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
     _lib = lib
     return _lib
@@ -145,24 +155,6 @@ def build_node_pool_native(nodes, node_lens, num_nodes,
         raise PackingError("node pool exceeded its capacity bound")
     u = max(-(-used // pad_multiple) * pad_multiple, min_rows)
     return pool_nodes[:u], pool_lens[:u], pool_idx
-
-
-def item_offsets_native(rows):
-    """Native per-node RLP offset-hint scan (zkp_item_offsets) — the
-    host-side producer of the fused walk kernel's decode hints, mirroring
-    ops/rlp.item_offsets. rows u8 [N, L] -> u8 [N, 36], or None when the
-    native library (or symbol) is unavailable."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "zkp_item_offsets"):
-        return None
-    rows = np.ascontiguousarray(rows, dtype=np.uint8)
-    n, row_len = rows.shape
-    out = np.empty((n, 36), dtype=np.uint8)
-    lib.zkp_item_offsets(
-        rows.ctypes.data_as(ctypes.c_void_p), n, row_len,
-        out.ctypes.data_as(ctypes.c_void_p),
-    )
-    return out
 
 
 def pack_proofs_native(entries, max_nodes: int, node_len: int, key_nibbles: int):

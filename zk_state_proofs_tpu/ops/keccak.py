@@ -1,15 +1,16 @@
-"""Batched Keccak-256 on TPU — pure-jnp compute path.
+"""Batched Keccak-256 — the plain jnp sponge (the reference implementation
+on every platform, the CPU path, and the parity oracle of ops.keccak_gpu).
 
-TPU-native re-design of the reference's hashing hot loop
+Re-design of the reference's hashing hot loop
 (reference: crypto-ops/src/keccak.rs:6-12 — tiny-keccak Keccak-f[1600],
 serial, one message at a time). The state is 25 64-bit lanes held as hi/lo
-uint32 pairs (TPU has no native u64) with the lane axis LEADING and the
-message batch in the minor dims, so every step is a short chain of
-elementwise/rolled ops over [25, *batch] arrays that the VPU vectorizes
-across messages. The permutation is written in fully *vectorized* form
-(theta/chi as rolls over the 5x5 grid, pi as a single 25-lane gather, rho as
-an elementwise variable-amount 64-bit rotate) — ~25 tensor ops per round, so
-the XLA graph stays small and compiles fast.
+uint32 pairs (no 64-bit integers needed, so it runs without jax_enable_x64)
+with the lane axis LEADING and the message batch in the minor dims, so
+every step is a short chain of elementwise/rolled ops over [25, *batch]
+arrays vectorized across messages. The permutation is written in fully
+*vectorized* form (theta/chi as rolls over the 5x5 grid, pi as a single
+25-lane gather, rho as an elementwise variable-amount 64-bit rotate) — ~25
+tensor ops per round, so the XLA graph stays small and compiles fast.
 
 Ethereum's LEGACY Keccak padding (0x01) is used, not SHA-3's 0x06.
 

@@ -1,6 +1,6 @@
 """Fixed-shape, table-free RLP *node* decoding on device.
 
-TPU-native replacement for the RLP node codec the reference delegates to the
+Device replacement for the RLP node codec the reference delegates to the
 `eth_trie` crate and `alloy-rlp` (reference: crypto-ops/src/lib.rs:14-22,
 trie-utils usage at proofs/transaction.rs:45,67). Everything operates on
 zero-padded uint8 buffers with explicit lengths — static shapes under jit;
@@ -196,50 +196,6 @@ def decode_node_select(table, start, buf_len, child_idx):
         is_list & head_ok & (cursor == end) & (end <= buf_len) & all_ok
     )
     return sel
-
-
-def item_offsets(buf):
-    """Per-node RLP item-boundary offsets — decode HINTS for the fused
-    Pallas walk kernel's parallel header check.
-
-    buf u8 [R, N] (zero-padded trie nodes, decoded at offset 0) ->
-    u8 [R, 36]: the 18 cursor positions of the serial decode chain
-    (payload start of the node list, then the boundary after each of up
-    to 17 items), each a big-endian u16 clamped to 65535.
-
-    Parsing an RLP item list is inherently serial (each item's offset
-    depends on the previous header), but VERIFYING a claimed offset chain
-    is parallel: given h[0..17], every item header can be fetched
-    independently and the 17 checks  h[i+1] == h[i] + head_len_i +
-    payload_len_i  run at once. This pass runs the serial chain ONCE per
-    unique node (pool rows), off the per-proof hot path; the kernel then
-    decodes hinted nodes with no sequential dependency and falls back to
-    its exact serial kernel if any check fails — so crafted hints (or
-    stale caches) cost performance, never soundness. Mirrors the kernel's
-    serial semantics exactly: same header rules (item_head_window), same
-    position clamp (fetch_packed clips into the padded buffer).
-    """
-    from .select import fetch_packed, make_word_table  # avoid cycle
-
-    b = buf.shape[0]
-    table = make_word_table(buf)
-    hb = fetch_packed(table, jnp.zeros((b,), jnp.int32), 4)
-    po, plen, _, _ = item_head_window(hb)
-    end = po + plen
-    cursor = po
-    hs = [cursor]
-    for _ in range(MAX_ITEMS):
-        win = fetch_packed(table, cursor, 4)
-        ipo, ipl, _, _ = item_head_window(win)
-        present = cursor < end
-        cursor = jnp.where(present, cursor + ipo + ipl, cursor)
-        hs.append(cursor)
-    h = jnp.clip(jnp.stack(hs, axis=1), 0, 0xFFFF)  # i32 [R, 18]
-    return (
-        jnp.stack([h >> 8, h & 0xFF], axis=-1)
-        .reshape(b, 2 * (MAX_ITEMS + 1))
-        .astype(jnp.uint8)
-    )
 
 
 def read_bytes32(buf, pos):

@@ -1,12 +1,11 @@
 """Gather-free dynamic fetches for the MPT walker.
 
-TPU has no vector-gather: XLA lowers batched gathers to ~10ns/element
-serial loops, which made window fetches the walker's bottleneck (profiled:
-the two 64-byte hp-compare windows + the 32-byte child-hash read were ~65%
-of walk time). These helpers fetch dynamic windows with one-hot matmuls
-instead — the MXU performs the "gather" as two small batched contractions
-(word-coarse select, then byte alignment) — measured ~3.3x faster than the
-equivalent gather at [4096, 64].
+These helpers fetch per-row dynamic byte windows with one-hot
+contractions instead of gathers: two small batched contractions
+(word-coarse select, then byte alignment) for wide windows, one
+single-row contraction over a packed word table for the walker's 4-byte
+RLP header reads. Whether plain gathers beat them on the GPU is not
+measured yet.
 """
 
 from __future__ import annotations
@@ -70,15 +69,10 @@ def make_word_table(buf):
     Built once per walker step and reused by all 18 sequential header
     fetches of the RLP decode chain.
 
-    Measured on v5e (walk time for the 4096x6 account bucket):
-      f32 u16-halves, 1-row dot, HIGHEST precision   2.16 ms  <- this
-      bf16 bytes [B,NW,8], 1-row dot                 3.50 ms
-      bf16 bytes [B,NW,4], 2-row dot                 4.65 ms
-      two bf16 [B,NW,4] dots sharing one one-hot     4.15 ms
-      vmapped two-stage fetch_window (previous)      5.72 ms
-    The dot MUST run at Precision.HIGHEST: TPU f32 matmuls default to
-    truncating bf16 passes, which silently zero the hi byte of each u16
-    (bytes, by contrast, are exact in bf16 — that's what fetch_window uses).
+    The dot MUST run at Precision.HIGHEST: f32 matmuls may otherwise run
+    in reduced precision (TF32 on NVIDIA tensor cores keeps 10 mantissa
+    bits), which would corrupt the u16 halves (bytes, by contrast, are
+    exact in bf16 — that's what fetch_window uses).
     """
     b, n = buf.shape
     if n % 4:
@@ -101,8 +95,7 @@ def fetch_packed(table, pos, width: int = 4):
     precision — exact for u16 halves) fetches the 8 bytes at the enclosing
     word pair; the residual (pos mod 4) alignment is a 4-way where-select
     over static slices, so widths up to 5 are always covered. For wider
-    windows use `fetch_window` — multi-row one-hot contractions measured
-    slower than its two-stage form.
+    windows use `fetch_window`.
     """
     assert width <= 5, "fetch_packed covers <=5 bytes; use fetch_window"
     b, nw, _ = table.shape

@@ -7,27 +7,17 @@ keccak kernel. Leaf levels are wide (one node per ~16 values), upper levels
 shrink geometrically — so virtually all hashing happens in the first one or
 two batched kernel calls.
 
-TPU replacement for the reference's serial `EthTrie::root_hash`
+Batched replacement for the reference's serial `EthTrie::root_hash`
 (reference: trie-utils/src/proofs/transaction.rs:66 hot loop #2).
 """
 
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from ..oracle.trie import EMPTY_ROOT
-
-
-def _keccak(data, lengths):
-    if jax.default_backend() == "tpu":
-        from .keccak_pallas import keccak256_tpu
-
-        return keccak256_tpu(data, lengths)
-    from .keccak import keccak256
-
-    return keccak256(data, lengths)
+from .backend import keccak256
 
 
 def compute_root(plan):
@@ -47,7 +37,7 @@ def compute_root(plan):
             cols = jnp.asarray(lvl.hole_off)[:, :, None] + jnp.arange(32)[None, None, :]
             # holes are zero-initialized and disjoint -> scatter-add
             templ = templ.at[rows, cols].add(child.astype(jnp.uint8))
-        dg = _keccak(templ, jnp.asarray(lvl.lengths))
+        dg = keccak256(templ, jnp.asarray(lvl.lengths))
         digests = digests.at[jnp.asarray(lvl.node_ids)].set(dg)
     root = np.asarray(digests[plan.root_id])
     return root, np.asarray(digests)

@@ -3,7 +3,7 @@
 The level-wise keccak reduction (ops/trie_build.py) distributed over a
 device mesh: wide levels (leaves — virtually all the hashing work) are
 sharded across devices with `shard_map`, their digests exchanged with
-`all_gather` over ICI, and the geometrically-shrinking upper levels are
+`all_gather`, and the geometrically-shrinking upper levels are
 computed replicated (SURVEY.md §7.4: keep upper levels replicated so
 collective latency doesn't dominate). This is the scale-out path for
 witness generation over whole blocks / 1M-proof sweeps (BASELINE config #5).
@@ -18,7 +18,7 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..oracle.trie import EMPTY_ROOT
-from ..ops.trie_build import _keccak
+from ..ops.backend import keccak256
 
 # shard a level across the mesh only when every device gets at least this
 # many nodes — below that the collective latency beats the compute win
@@ -37,7 +37,7 @@ def _hash_level_sharded(mesh: Mesh, templates, lengths):
         lengths = np.pad(lengths, (0, npad - n))
 
     def shard_fn(t, l):
-        local = _keccak(t, l)                      # [n/ndev, 32]
+        local = keccak256(t, l)                      # [n/ndev, 32]
         return jax.lax.all_gather(local, axis, axis=0, tiled=True)
 
     fn = shard_map(
@@ -77,7 +77,7 @@ def compute_root_sharded(mesh: Mesh, plan):
         if n >= ndev * MIN_NODES_PER_DEVICE:
             dg = _hash_level_sharded(mesh, np.asarray(templ), lvl.lengths)
         else:
-            dg = _keccak(templ, jnp.asarray(lvl.lengths))
+            dg = keccak256(templ, jnp.asarray(lvl.lengths))
         digests = digests.at[jnp.asarray(lvl.node_ids)].set(dg)
     root = np.asarray(digests[plan.root_id])
     return root, np.asarray(digests)

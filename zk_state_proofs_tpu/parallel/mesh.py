@@ -2,13 +2,14 @@
 
 The reference has no parallelism at all (SURVEY.md §2.3: serial loop, one
 proof at a time inside a zkVM). Here the proof batch is the parallel axis:
-a `jax.sharding.Mesh` over the chips, batch dims sharded with
+a 1-D `jax.sharding.Mesh` over the devices, batch dims sharded with
 `shard_map`, per-shard verification via the batched device verifier, and
-global stats (found/excluded/invalid counts) reduced with `psum` over ICI.
+global stats (found/excluded/invalid counts) reduced with `psum` (NCCL on
+GPUs). The mesh stays 1-D: the cards of a host reach each other all to all
+over NVLink, so the layout follows the batch axis alone.
 
-On a multi-host pod slice the same code runs under
-`jax.distributed.initialize` — batch sharded per host over DCN, collectives
-ride ICI within each slice.
+Across hosts the same code runs under `jax.distributed.initialize`
+(parallel.multihost) with the batch sharded over every process's devices.
 """
 
 from __future__ import annotations

@@ -1,10 +1,10 @@
-"""Multi-host initialization for pod slices.
+"""Multi-process initialization.
 
-On a multi-host TPU pod slice every host runs the same program;
-`initialize()` wires them into one JAX runtime (DCN for host coordination,
-ICI for collectives), after which `make_mesh()` sees all global devices and
-the sharded verifier/sweep/trie-reduction paths work unchanged — proof
-batches shard per host, per-level digests ride ICI (SURVEY.md §2.3).
+With several processes (one per host, or one per GPU) every process runs
+the same program; `initialize()` wires them into one JAX runtime, after
+which `make_mesh()` sees all global devices and the sharded verifier/
+sweep/trie-reduction paths work unchanged — proof batches shard over every
+process's devices and collectives run across them.
 
 The reference has no distributed layer at all (SURVEY.md §2.3); this module
 is the net-new scale-out entry point.
@@ -20,9 +20,10 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> dict:
-    """jax.distributed.initialize with env-based defaults (on Cloud TPU the
-    arguments are auto-detected from the metadata server). Returns a summary
-    of the resulting topology."""
+    """jax.distributed.initialize. Where no cluster environment tells JAX
+    the topology, pass coordinator_address ("host:port"), num_processes
+    and process_id explicitly. Returns a summary of the resulting
+    topology."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address

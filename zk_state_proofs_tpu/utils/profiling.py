@@ -3,7 +3,7 @@
 The reference's only instrumentation is ad-hoc Instant::now prints in its
 prover tests (reference: prover/src/bin/main.rs:39,54-55). Here: a timing
 context that forces device sync, a throughput meter (hashes/sec,
-proofs/sec), and a hook into jax.profiler for TPU traces.
+proofs/sec), and a hook into jax.profiler for device traces.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Host-side witness packing: proofs -> padded device tensor bundles.
 
-The TPU equivalent of the reference's `MerkleProofInput` wire struct
+The device-side equivalent of the reference's `MerkleProofInput` wire struct
 (reference: crypto-ops/src/types.rs:5-9 — `proof: Vec<Vec<u8>>, root_hash,
 key`): variable-length proof-node lists become zero-padded fixed-shape
 arrays bucketed by (max_nodes, node_len), plus explicit lengths, ready for
@@ -48,7 +48,6 @@ class PackedProofs:
     pool_nodes: np.ndarray | None = None  # u8  [U, N] unique node bytes
     pool_lens: np.ndarray | None = None   # i32 [U]
     pool_idx: np.ndarray | None = None    # i32 [B, D] row -> pool row
-    _pool_hints: np.ndarray | None = None  # u8 [U, 36] RLP offset hints
 
     @property
     def batch(self) -> int:
@@ -81,41 +80,23 @@ class PackedProofs:
             )
         return self.pool_nodes, self.pool_lens, self.pool_idx
 
-    def pool_hints(self, min_rows: int = 0) -> np.ndarray:
-        """Per-pool-row RLP item-offset hints (u8 [U, 36]) for the fused
-        walk kernel's parallel-decode mode, computed ON THE HOST at pack
-        time (native C++ scan; numpy fallback). The device alternative
-        (ops.rlp.item_offsets) costs ~0.34 ms per 5.6k-row pool on v5e —
-        18 sequential tiny one-hot fetches, kernel-launch-bound — while
-        the host scan rides the packer for ~free and the existing digest
-        scatter carries the 36 bytes to the per-proof table. Hints are
-        UNTRUSTED either way: the kernel re-verifies the offset chain in
-        parallel and falls back to its exact serial decode on any
-        mismatch, so a stale or hostile hint costs speed, never
-        soundness."""
-        pool_nodes, _, _ = self.pool(min_rows)
-        if (self._pool_hints is None
-                or self._pool_hints.shape[0] != pool_nodes.shape[0]):
-            self._pool_hints = host_item_offsets(pool_nodes)
-        return self._pool_hints
+    def depth_segments(self, rows: int = 1024) -> tuple:
+        """Static contiguous depth segments ((count, d), ...) for the
+        depth-segmented walk (ops.mpt.verify_proofs_pooled(
+        depth_segments=...)).
 
-    def depth_segments(self, tile: int = 1024) -> tuple:
-        """Static contiguous depth segments ((count, d), ...) at kernel-tile
-        granularity, for the depth-bucketed walk dispatch
-        (ops.mpt.verify_proofs_pooled(depth_segments=...)).
-
-        Each tile's d is the max num_nodes within it; adjacent equal-d
-        tiles merge. On a depth-sorted batch (descending — the bench/
-        serving batch-formation order) segments are depth-homogeneous, so
-        shallow tiles walk with a smaller static node axis: the fused
-        kernel's per-step node materialization and double-buffered input
-        streaming both scale with d, and measured A/Bs show that term —
-        not decode ops or fetch traffic — sets the walk's pace. Works
-        (correctly, just with less win) on unsorted batches too."""
+        Each run of `rows` proofs gets d = the max num_nodes within it;
+        adjacent equal-d runs merge. On a depth-sorted batch (descending —
+        the bench/serving batch-formation order) segments are
+        depth-homogeneous, so shallow segments walk with a smaller static
+        node axis and scatter digests only for the slots they have.
+        `rows` bounds the number of segments, and so the number of walks
+        in the traced program, to ceil(B / rows). Works (correctly, just
+        with less win) on unsorted batches too."""
         nn = self.num_nodes
         segs: list[tuple[int, int]] = []
-        for off in range(0, len(nn), tile):
-            cnt = min(tile, len(nn) - off)
+        for off in range(0, len(nn), rows):
+            cnt = min(rows, len(nn) - off)
             d = max(int(nn[off:off + cnt].max()), 1)
             if segs and segs[-1][1] == d:
                 segs[-1] = (segs[-1][0] + cnt, d)
@@ -123,29 +104,26 @@ class PackedProofs:
                 segs.append((cnt, d))
         return tuple(segs)
 
-    def pool_block_segments(self, tile: int = 1024) -> tuple:
+    def pool_block_segments(self) -> tuple:
         """Static contiguous ((row_count, width_bytes), ...) segments of
-        the unique-node pool at kernel-tile granularity, for segmented
-        pool hashing (ops.mpt.hash_nodes_pooled(pool_segments=...)).
+        the unique-node pool, for segmented pool hashing
+        (ops.mpt.verify_proofs_pooled(pool_segments=...)).
 
-        The pool is length-sorted descending, so slicing it by sponge
-        block count gives contiguous runs; each segment hashes at its own
-        trimmed static width. The win is in the XLA prep passes
-        (pad_messages / bytes_to_lanes / transposes), which scale with
-        the STATIC block bucket: an unsegmented 576-B pool preps 5 rate
-        blocks for every row although the sorted pool is mostly 1-block
-        leaves (two-point device A/B at the headline pool: ~0.08 ->
-        ~0.03 ms/batch). Zero-length rows (reserved row 0 + tail padding)
-        fold into the adjacent run — hashing them at any width is exact
-        (length-masked sponge). Segment boundaries round UP to `tile` so
-        each pallas dispatch stays tile-aligned; widths round to 8."""
+        The pool is length-sorted descending, so its sponge block counts
+        form contiguous runs; each run hashes at its own trimmed static
+        width (the widest row in it, rounded up to the sponge kernel's
+        4-byte word), so the mostly 1-block leaves do not carry the
+        widest node's width. Zero-length rows (reserved row 0 + tail
+        padding) fold into the adjacent run — hashing them at any width
+        is exact (length-masked sponge). Both sponges mask their own tail
+        rows, so boundaries need no alignment."""
         _, lens, _ = self.pool()
         lens = np.asarray(lens)
         rate = 136
         nblk = np.where(lens > 0, lens // rate + 1, 0)
         real = np.nonzero(nblk)[0]
         if len(real) == 0:
-            return ((len(lens), 8),)
+            return ((len(lens), 4),)
         filled = nblk.copy()
         last = nblk[real[0]]
         for i in range(len(filled)):
@@ -157,19 +135,14 @@ class PackedProofs:
         off = 0
         n = len(lens)
         while off < n:
-            nb = filled[off]
             end = off
-            while end < n and filled[end] == nb:
+            while end < n and filled[end] == filled[off]:
                 end += 1
-            # round the boundary up to tile alignment (rows absorbed from
-            # the next run have <= nb blocks: exact, just less trimming)
-            end = min(n, off + -(-(end - off) // tile) * tile)
-            w = int(lens[off:end].max())
-            seg = (end - off, max(-(-w // 8) * 8, 8))
-            if segs and segs[-1][1] == seg[1]:
-                segs[-1] = (segs[-1][0] + seg[0], seg[1])
+            w = max(-(-int(lens[off:end].max()) // 4) * 4, 4)
+            if segs and segs[-1][1] == w:
+                segs[-1] = (segs[-1][0] + end - off, w)
             else:
-                segs.append(seg)
+                segs.append((end - off, w))
             off = end
         return tuple(segs)
 
@@ -240,57 +213,6 @@ def validate_node_pool(nodes, node_lens, num_nodes, pool_nodes, pool_lens,
         )
 
 
-def _rlp_head_vec(rows, pos, n4):
-    """Vectorized RLP header parse at per-row positions `pos` (numpy
-    mirror of ops/rlp.item_head_window + its clamped 4-byte fetch).
-    rows u8 [R, L]; pos i64 [R]. Returns (payload_off, payload_len)."""
-    r, l = rows.shape
-    pc = np.clip(pos, 0, n4 - 1)
-    idx = pc[:, None] + np.arange(4)[None, :]
-    b = np.where(idx < l, rows[np.arange(r)[:, None], np.minimum(idx, l - 1)],
-                 0).astype(np.int64)
-    b0 = b[:, 0]
-    lol = np.where((b0 >= 0xB8) & (b0 <= 0xBF), b0 - 0xB7,
-                   np.where(b0 >= 0xF8, b0 - 0xF7, 0))
-    long_len = np.where(lol == 1, b[:, 1],
-                        np.where(lol == 2, (b[:, 1] << 8) | b[:, 2],
-                                 (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3]))
-    single = b0 < 0x80
-    po = np.where(single, 0, 1 + lol)
-    pl = np.where(single, 1,
-                  np.where(lol > 0, long_len,
-                           np.where(b0 >= 0xC0, b0 - 0xC0, b0 - 0x80)))
-    return po, pl
-
-
-def host_item_offsets(rows) -> np.ndarray:
-    """Host-side mirror of ops/rlp.item_offsets: u8 [R, L] -> u8 [R, 36]
-    (18 big-endian u16 decode-chain cursors per node). Native C++ scan
-    when available; vectorized-numpy serial chain otherwise. Bit-identical
-    to the device pass (tests/test_mpt_pallas.py asserts it), so
-    pack-time hints never trip the kernel's parallel chain check on
-    honest nodes."""
-    from .. import native as _native
-
-    rows = np.ascontiguousarray(rows, dtype=np.uint8)
-    out = _native.item_offsets_native(rows)
-    if out is not None:
-        return out
-    r, l = rows.shape
-    n4 = -(-l // 4) * 4
-    po, pl = _rlp_head_vec(rows, np.zeros(r, np.int64), n4)
-    end = po + pl
-    cursor = po
-    hs = [cursor]
-    for _ in range(17):
-        ipo, ipl = _rlp_head_vec(rows, cursor, n4)
-        present = cursor < end
-        cursor = np.where(present, cursor + ipo + ipl, cursor)
-        hs.append(cursor)
-    h = np.clip(np.stack(hs, axis=1), 0, 0xFFFF)
-    return np.stack([h >> 8, h & 0xFF], axis=-1).reshape(r, 36).astype(np.uint8)
-
-
 def build_node_pool(nodes, node_lens, num_nodes, pad_multiple: int = 128,
                     min_rows: int = 0):
     """Deduplicate proof-node rows into a pool for single-pass hashing.
@@ -300,10 +222,11 @@ def build_node_pool(nodes, node_lens, num_nodes, pad_multiple: int = 128,
     padding rows and rows past num_nodes scatter a harmless digest).
 
     Rows 1.. are ordered by DESCENDING byte length (stable within equal
-    lengths): the Pallas keccak kernel's sponge-block skip is per
-    1024-row tile (keccak_pallas._keccak_kernel), so grouping multi-block
-    branch nodes together lets leaf-only tiles run one permutation
-    instead of node_len//136+1.
+    lengths): sponge block counts then form contiguous runs, which
+    segmented pool hashing (PackedProofs.pool_block_segments) hashes at
+    trimmed widths, and each GPU sponge program's block loop (bounded by
+    the largest block count among its rows) runs no longer than its own
+    rows need.
 
     Uses the native C++ dedup (hash-table pass over the packed rows) when
     available — the Python per-row dict loop below is the fallback and the

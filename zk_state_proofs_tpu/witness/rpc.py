@@ -1,6 +1,6 @@
 """JSON-RPC witness-fetch clients (Ethereum / Optimism / Arbitrum).
 
-Host-side I/O is not TPU work: these are plain-Python equivalents of the
+Host-side I/O is not device work: these are plain-Python equivalents of the
 reference's alloy provider usage and its two hand-rolled reqwest clients
 (reference: trie-utils/src/proofs/optimism/client.rs:5-63,
 arbitrum/client.rs:6-93). Arbitrum mirrors the reference's limitation:

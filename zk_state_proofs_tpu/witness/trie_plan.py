@@ -7,9 +7,9 @@ and emits per-level "templates": node encodings with 32-byte zero holes at
 child-hash positions, plus (source-node, byte-offset) scatter plans.
 
 The device then computes the root bottom-up (ops/trie_build.py): hash all
-level-0 nodes with the batched keccak kernel, scatter the digests into the
+level-0 nodes with the batched keccak sponge, scatter the digests into the
 level-1 templates, hash, and so on — a level-wise keccak reduction. This is
-the TPU replacement for the reference's serial `trie.root_hash()` over
+the device replacement for the reference's serial `trie.root_hash()` over
 locally rebuilt tx/receipt tries (reference:
 trie-utils/src/proofs/transaction.rs:41-66, proofs/receipt.rs:44-90).
 
